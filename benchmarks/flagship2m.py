@@ -3,15 +3,15 @@ evolving MW + LMC potential with dynamical friction.
 
 The reference's flagship demonstration is an N≈2M multi-species run over
 long times on one GPU (reference: examples/MW_gpu_tree_stability.ipynb,
-CHANGELOG.md:225-228).  This drives the same scale through the TPU-native
-stack with every flagship subsystem on at once:
+CHANGELOG.md:225-228).  This drives the same scale through this stack
+with every flagship subsystem on at once:
 
 * N = 2,097,153 particles in three species — dark (Plummer halo),
   stars (compact Plummer), and a central BH particle — sampled in
   equilibrium from the Eddington DF of the combined satellite potential
   (native sampler, df.py);
-* self-gravity via the direct O(N^2) solver (impl='auto': Pallas or the
-  XLA two-pass, time-trialled on the actual ICs for long runs);
+* self-gravity via the direct O(N^2) solver (impl='auto': the Pallas
+  kernel on a GPU);
 * external field: the evolving MW + moving LMC + non-inertial frame
   acceleration (potentials/mwlmc.py — the reference's MW_LMC_evolv
   tables through the native GalPot builders);
@@ -20,7 +20,7 @@ stack with every flagship subsystem on at once:
 * snapshots + restart through the reference-schema HDF5 writer, with
   the emergency-restart machinery armed (step_timeout_s);
 * post-run on-device SPH surface-density renders of first/last
-  snapshots (viz/sph.py) committed as the flagship figures.
+  snapshots (viz/sph.py), written next to the snapshots.
 
 Usage:  python benchmarks/flagship2m.py [N_total] [steps] [--figures-only]
 Defaults N=2,097,153, steps=200, dt=5e-4 (~0.49 Myr; t: -0.1 -> 0 =
@@ -32,15 +32,13 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from nbody_streams_tpu.utils.supervise import resupervise  # noqa: E402
-
 import numpy as np  # noqa: E402
 
 N_TOTAL = 2_097_153
 STEPS = 200
 DT = 5e-4
 OUT = "./output_flagship2m"
-FIGDIR = Path("docs/runs/flagship2m")
+FIGDIR = Path(OUT) / "figures"
 
 # satellite model (Sgr-class dwarf): Plummer dark halo + compact
 # stellar Plummer + central BH
@@ -109,7 +107,7 @@ def run(n_total, steps):
     t0 = time.time()
     out = run_simulation(
         xv, species, t_start, t_end, DT,
-        architecture="tpu",
+        architecture="gpu",
         method="direct",
         external_potential=pot_ext,
         dynamical_friction=True,
@@ -178,7 +176,6 @@ def figures():
 
 
 if __name__ == "__main__":
-    resupervise(__file__, timeout_s=14400.0)
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     n_total = int(args[0]) if args else N_TOTAL
     steps = int(args[1]) if len(args) > 1 else STEPS

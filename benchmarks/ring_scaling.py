@@ -1,16 +1,15 @@
 """Ring-sharding overhead measurement on the virtual CPU mesh.
 
-Real multi-chip hardware is not available in this container, but the
-ring's *orchestration overhead* is measurable without it: the 8 virtual
+The ring's *orchestration overhead* is measurable without several
+devices: the 8 virtual
 CPU devices (``--xla_force_host_platform_device_count``) share the same
 physical core(s), so total pairwise work is executed by the same silicon
 regardless of D — if the ring added nothing, wall time would be flat in
 D.  The measured ratio t(D)/t(1) therefore isolates exactly the cost
 the mesh adds per evaluation: D partial-tile dispatches, D-1
 collective-permutes of the source block, shard_map bookkeeping, and the
-Kahan cross-step accumulation.  (This container exposes ONE physical
-core, so sizes are kept small; the per-evaluation ratios are what
-transfer, not the absolute times.)
+Kahan cross-step accumulation.  (Sizes are kept small; the
+per-evaluation ratios are what transfer, not the absolute times.)
 
 Usage:  JAX does NOT need env flags — the script forces the CPU
 platform and an 8-device host itself (run from the repo root):

@@ -5,7 +5,7 @@ Native version of the reference's flagship workflow
 non-inertial frame accelerated by the infalling LMC; a globular-cluster
 progenitor is rewound 3 time units (~2.9 Gyr) in the combined field and
 a particle-spray stream is released along its orbit.  Runs on CPU in
-about a minute; on TPU the orbit integration jits onto the device.
+about a minute; on a GPU the orbit integration jits onto the device.
 
 Usage:  python examples/mw_lmc_stream.py
 """

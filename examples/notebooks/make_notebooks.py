@@ -38,9 +38,9 @@ reference's stability notebooks (reference: `examples/
 MW_gpu_tree_stability.ipynb` methodology at small N) through the unified
 `run_simulation` API.
 
-Everything below runs on CPU so the notebook executes anywhere; on a TPU
-host pass `architecture='tpu'` and scale N up — the same call sustains
-the headline throughput (see `docs/performance.md`)."""),
+Everything below runs on CPU so the notebook executes anywhere; on a GPU
+host pass `architecture='gpu'` and scale N up — the same call runs the
+Pallas kernel there (see `PERF.md`)."""),
     ("code", """\
 import numpy as np
 import matplotlib.pyplot as plt
@@ -131,7 +131,7 @@ The reference's flagship stream workflow (reference:
 frame accelerated by the infalling LMC; a globular-cluster progenitor is
 rewound in the combined time-dependent field and released as a
 particle-spray stream along its orbit.  Everything here is the native
-TPU-first stack — GalPot potentials, jittable DP5 orbit integration,
+JAX stack — GalPot potentials, jittable DP5 orbit integration,
 Chen+2025 spray — with no Agama or CUDA dependency."""),
     ("code", """\
 import numpy as np

@@ -1,7 +1,8 @@
 """Mesh-sharded direct summation at large N.
 
-On a multi-chip TPU slice this runs the exact O(N^2/D) ring-sharded
-force path; on a single host set
+On a host of several GPUs (four joined by NVLink, say) this runs the
+exact O(N^2/D) ring-sharded force path, the Pallas kernel computing
+each ring tile; on a CPU-only host set
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
 to demo the sharding on a virtual mesh (tiny N!).
 
@@ -18,7 +19,7 @@ import time
 import jax
 
 if os.environ.get("JAX_PLATFORMS") == "cpu":
-    # some TPU plugins force-register regardless of the env var
+    # pin the live config too, in case jax was configured earlier
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np

@@ -17,7 +17,7 @@ import numpy as np
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="nbody-run",
-        description="TPU-native direct N-body simulation runner",
+        description="Direct N-body simulation runner",
     )
     p.add_argument("--config", help="JSON config file (flags override it)")
     p.add_argument("--n", type=int, default=10000,
@@ -38,7 +38,7 @@ def _build_parser():
     p.add_argument("--precision", default="float32_kahan",
                    choices=["float32", "float32_kahan", "float64"])
     p.add_argument("--architecture", default="auto",
-                   choices=["auto", "cpu", "tpu"])
+                   choices=["auto", "cpu", "gpu"])
     p.add_argument("--method", default="direct",
                    choices=["direct", "tree"])
     p.add_argument("--external-potential",

@@ -40,7 +40,7 @@ KERNEL_NAMES = {v: k for k, v in KERNEL_IDS.items()}
 
 KernelName = Literal["newtonian", "plummer", "dehnen_k1", "dehnen_k2", "spline"]
 
-Precision = Literal["float32", "float64", "float32_kahan", "float32_fast"]
+Precision = Literal["float32", "float64", "float32_kahan"]
 
 
 def validate_kernel(kernel: str) -> str:
@@ -53,10 +53,9 @@ def validate_kernel(kernel: str) -> str:
 
 
 def validate_precision(precision: str) -> str:
-    if precision not in ("float32", "float64", "float32_kahan",
-                         "float32_fast"):
+    if precision not in ("float32", "float64", "float32_kahan"):
         raise ValueError(
             f"Unknown precision {precision!r}; expected 'float32', "
-            "'float64', 'float32_kahan' or 'float32_fast'"
+            "'float64' or 'float32_kahan'"
         )
     return precision

@@ -4,7 +4,7 @@ The reference generates equilibrium ICs by delegating to Agama's
 ``DistributionFunction`` / ``GalaxyModel`` machinery (its MW stability
 notebook requires ``agama`` for the QuasiSpherical halo/bulge DFs and the
 QuasiIsothermal disk DF; reference: ``examples/MW_gpu_tree_stability.ipynb``,
-``fast_sims/_common.py:222``).  Agama does not exist on TPU hosts, so this
+``fast_sims/_common.py:222``).  Agama is not a dependency here, so this
 module implements the two samplers natively:
 
 * :func:`sample_quasispherical` — isotropic Eddington-inversion DF

@@ -1,6 +1,6 @@
 """Fast stream-generation methods: particle spray and restricted N-body.
 
-TPU-native equivalent of the reference's fast_sims package — orbit
+Native equivalent of the reference's fast_sims package — orbit
 integration, King/Plummer progenitors, Jacobi-radius machinery and
 Chen+2025 / Fardal+2015 spray ICs all run on the native potential stack
 (no Agama dependency).

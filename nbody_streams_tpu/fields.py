@@ -2,7 +2,7 @@
 
 The reference keeps its force/potential field entry points in
 ``nbody_streams.fields`` (reference: fields.py); here they live in
-:mod:`nbody_streams_tpu.ops`.  One TPU path serves both the reference's
+:mod:`nbody_streams_tpu.ops`.  One path serves both the reference's
 "gpu" and "cpu" names — the jitted kernels run wherever JAX runs.
 """
 from .constants import G_DEFAULT  # noqa: F401

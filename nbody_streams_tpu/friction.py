@@ -1,6 +1,6 @@
 """Chandrasekhar dynamical friction — fully jittable on-device term.
 
-TPU-native redesign of the reference's DF implementation
+Redesign of the reference's DF implementation
 (reference: _chandrasekhar.py:439-838).  The reference runs host-side
 NumPy inside a mutable-closure ``force_extra`` with a device round-trip
 per step; here the whole term — shrinking-sphere CoM, predictor

@@ -3,7 +3,7 @@
 Loads ``libnbody_host.so`` (built with ``make`` in this directory or via
 :func:`build`); every entry point has a NumPy/SciPy fallback so the
 package works unbuilt.  This is the framework's host-native layer — the
-TPU compute path is Pallas/XLA (see ops/), mirroring the reference's
+device compute path is Pallas/XLA (see ops/), mirroring the reference's
 split between its CUDA .so and Python host code.
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
 // host_ops.cpp — native host-side runtime kernels (C ABI, ctypes-loaded).
 //
-// TPU-native framework's equivalent of the reference's host/native layer
+// The framework's equivalent of the reference's host/native layer
 // (the reference ships a CUDA Barnes-Hut .so plus NumPy Morton sorting,
-// reference: viz/sph_kernels.py:63-111 and tree_gpu/).  The TPU compute
+// reference: viz/sph_kernels.py:63-111 and tree_gpu/).  The device compute
 // path is Pallas/XLA; these are the *host* hot spots that sit off-device:
 //
 //   morton_argsort : 64-bit interleaved-key spatial sort (SPH locality,

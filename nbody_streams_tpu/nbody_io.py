@@ -14,7 +14,7 @@ by the other:
   metadata arrays).
 * ``snapshot.times`` two-column text index, auto-maintained.
 
-TPU note: all of this runs host-side, off the device hot path — the
+All of this runs host-side, off the device hot path — the
 integrator hands over already-fetched NumPy arrays at snapshot boundaries
 (see run.py), so file writes overlap the next device chunk.
 """

@@ -24,8 +24,8 @@ id    name         description
 ====  ===========  ==========================================================
 
 All functions are written branch-free (``jnp.where`` ladders with
-denominators guarded *before* division) so they map onto the TPU VPU with
-no control flow.  ``kind`` is a static Python string: each kernel choice
+denominators guarded *before* division) so they vectorise with no
+control flow.  ``kind`` is a static Python string: each kernel choice
 traces to a distinct XLA program, exactly like the reference compiling one
 CUDA kernel per ``kernel_id``.
 """
@@ -70,19 +70,19 @@ def _force_dehnen_k1(r2, h):
 
 def _force_dehnen_k2(r2, h):
     h2 = h * h
-    h4 = h2 * h2
     d = r2 + h2
     inv = _rsqrt(d)
     inv_d = inv * inv
     inv_d32 = inv_d * inv
     inv_d52 = inv_d32 * inv_d
-    inv_d72 = inv_d52 * inv_d
-    return inv_d32 + 1.5 * h2 * inv_d52 + 3.75 * h4 * inv_d72
+    # h^4 / d^3.5 as (h^2/d) (h^2/d^2.5): d^-3.5 overflows float32 for an
+    # unsoftened self pair (d = eps2), and 0 * inf would be NaN
+    return inv_d32 + 1.5 * h2 * inv_d52 + 3.75 * (h2 * inv_d) * (h2 * inv_d52)
 
 
 def _force_spline(r2, h):
     # Monaghan-1992 cubic spline with compact support: Newtonian for r >= h.
-    # Division-free formulation (TPU VPU: rsqrt is cheap, divide is not):
+    # Division-free formulation (rsqrt is cheap, divide is not):
     # q = r/h = r * hinv,  1/q^3 * h^-3 = 1/r^3 = inv_r^3, so the outer
     # branch's 1/q^3 term folds into the Newtonian factor.
     inv_r = _rsqrt(r2)

@@ -1,17 +1,17 @@
 """Reference O(N^2) pairwise force / potential evaluation in pure jax.numpy.
 
 This is the *oracle* implementation: dtype-polymorphic, runs on any backend
-(CPU float64 for validation, TPU float32 for production), and is the ground
-truth that the Pallas fast path (`ops/pallas_direct.py`) and the mesh-sharded
-path (`parallel/sharded.py`) are tested against.
+(float64 for validation, float32 where no faster path exists), and is the
+ground truth that the Pallas fast path (`ops/pallas_direct.py`) and the
+mesh-sharded path (`parallel/sharded.py`) are tested against.
 
-Design notes (TPU-first):
+Design notes:
 
 * The N^2 interaction matrix is never materialised at full size.  Targets are
   processed in blocks of ``block_size`` via ``lax.map`` and sources are
   streamed in blocks via ``lax.scan``, so peak memory is
   O(block_size^2) regardless of N, and every intermediate is a
-  (block, block) fp array that XLA fuses into a single VPU loop.
+  (block, block) fp array that XLA fuses into one elementwise kernel.
 * Pairwise convention matches the reference framework exactly
   (reference: cuda_kernels.py:105-180): softening pair rule
   ``h_eff = max(h_i, h_j)``, additive ``eps2 = 1e-15`` regularisation inside

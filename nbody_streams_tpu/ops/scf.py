@@ -5,23 +5,19 @@ Barnes-Hut GPU tree (reference: tree_gpu/, README.md:799-807 crossover
 guidance: ">2M use tree/FMM"); its fast-sims tier rebuilds an Agama
 Multipole from the progenitor's bound particles every few steps
 (reference: fast_sims/restricted.py:39-372, agama_helper/_fit.py).  A
-tree walk is a poor fit for the TPU (irregular gathers, data-dependent
-control flow); the TPU-shaped equivalent of "approximate far field,
-cheap per step" is the classic **Hernquist–Ostriker (1992) SCF
-expansion**: project the particle density onto a fixed biorthogonal
+tree walk means irregular gathers and data-dependent control flow; the
+dense-array equivalent of "approximate far field, cheap per step" is
+the classic **Hernquist–Ostriker (1992) SCF expansion**: project the particle density onto a fixed biorthogonal
 potential–density basis and differentiate the smooth truncated field.
 
 Per step this is two dense passes over the particles — an
 ``(N, P) x (N, Q)`` coefficient contraction and a basis evaluation —
-i.e. pure MXU matmuls plus elementwise recurrences, O(N (nmax+1)
-(lmax+1)^2) with NO pair interactions, no sorting, no tree.  Measured
-on the real v5e (benchmarks/scf_bench.py, 2026-08-19, (nmax, lmax) =
-(8, 4)): 16.5 ms per force eval / 30.1 ms per KDK step at N = 1M, and
-121.6 ms / 234.0 ms at N = 8M (~35 Mparticle-steps/s, linear in N) —
-at the reference tree's own accuracy class (1-5% force error,
+i.e. plain dense matrix products plus elementwise recurrences,
+O(N (nmax+1) (lmax+1)^2) with NO pair interactions, no sorting, no
+tree — at the reference tree's own accuracy class (1-5% force error,
 README.md:848-855; the SCF ladder measures 3-5% median vs direct at
 (nmax, lmax) >= (4, 2), saturating at the sampled system's shot-noise
-floor), versus the reference tree's ~1-2 s per 2M-particle call.
+floor).  Its speed on the GPU is not measured yet (PERF.md).
 
 Mathematical scheme (dimensionless s = r/a, xi = (s-1)/(s+1)):
 
@@ -47,9 +43,9 @@ quadrature in xi (the integrand is a smooth rational polynomial on
 
 Accuracy is controlled by (nmax, lmax) exactly like the tree's theta:
 tests pin a convergence ladder against direct summation.  Both SCF
-matmuls run at ``lax.Precision.HIGHEST`` so the dial holds on real TPUs
-too (the default single-pass-bf16 MXU matmul would floor the relative
-error near 1e-3 regardless of truncation order).  The expansion
+matmuls run at ``lax.Precision.HIGHEST`` so the dial holds on the GPU
+too (a TF32 product would floor the relative error near 1e-3
+regardless of truncation order).  The expansion
 is global and smooth — no self-interaction, no softening (the
 ``softening`` argument is accepted and ignored for driver
 compatibility), forces are curl-free by construction.
@@ -195,11 +191,11 @@ def scf_coefficients(pos, mass, a, nmax, lmax, labels, K_flat, mask):
     """A (P, Q) expansion coefficients of the particle set (masked to
     matching l; already divided by the radial norms K_nl)."""
     R, B = _basis_rows(pos, a, nmax, lmax, labels)
-    # Precision.HIGHEST: on TPU the default fp32 matmul runs as a
-    # single-pass bf16 MXU op, which would put a ~1e-3-class relative
-    # floor under the coefficients that (nmax, lmax) could not reduce.
-    # Both SCF matmuls are tiny (P, Q ~ tens), so the 6-pass fp32
-    # emulation costs nothing against the O(N P) basis recurrences.
+    # Precision.HIGHEST: a float32 product left to XLA may run in TF32
+    # on the GPU, which would put a ~1e-3-class relative floor under
+    # the coefficients that (nmax, lmax) could not reduce.  Both SCF
+    # matmuls are tiny (P, Q ~ tens), so full fp32 costs little
+    # against the O(N P) basis recurrences.
     M = jax.lax.dot_general((mass[:, None] * R), B,
                             (((0,), (0,)), ((), ())),
                             precision=jax.lax.Precision.HIGHEST,
@@ -317,8 +313,7 @@ class SCFGravity:
         self._K_flat = jnp.asarray(K.T.reshape(-1), self.dtype)
         self._mask = jnp.asarray(
             _l_mask(self.nmax, self.lmax, self.labels), self.dtype)
-        # terms per particle per pass — the driver's dispatch-cap
-        # throughput model reads this
+        # terms per particle per pass (cost model: O(N * terms))
         self.terms = (self.nmax + 1) * len(self.labels)
 
     # -- driver interface ---------------------------------------------------
@@ -379,7 +374,7 @@ class CompositeSCFGravity:
     falls out of the 1-5% class exactly where the reference's tree
     would not (reference: tree_gpu/computeForces.cu:647 — the tree
     opening criterion is geometry-blind; README.md:850-855).  The
-    TPU-shaped fix is one SCF expansion per mass concentration: each
+    dense-array fix is one SCF expansion per mass concentration: each
     group keeps its own center (typically ``center='com'`` so the
     expansion follows its group), own scale radius, own (nmax, lmax),
     and the total field is the exact sum of the truncated group fields

@@ -1,6 +1,6 @@
 """External potentials: analytic, BFE (Multipole/CylSpline), modifiers.
 
-TPU-native equivalent of the reference's ``agama_helper`` package: all
+Native equivalent of the reference's ``agama_helper`` package: all
 evaluators are jittable JAX callables usable directly inside the scanned
 KDK step (``potential``/``force``/``density``/``forceDeriv`` with Agama
 conventions).

@@ -1,6 +1,6 @@
 """Potential base class: autodiff-derived forces, Agama-compatible surface.
 
-TPU-native redesign of the reference's GPU potential stack
+Redesign of the reference's GPU potential stack
 (reference: agama_helper/_analytic_potentials.py:87-171 `_AnalyticBase`,
 _potential.py:85-101 `_GPUPotBase`): where the reference hand-writes four
 CUDA kernels per potential (phi/rho/grad/hess), here each potential defines

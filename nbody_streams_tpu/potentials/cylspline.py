@@ -1,6 +1,6 @@
 """CylSpline (azimuthal-harmonic 2-D BFE) potential — jittable evaluator.
 
-TPU-native re-design of the reference's CylSplinePotentialGPU
+Re-design of the reference's CylSplinePotentialGPU
 (reference: agama_helper/_potential.py:1000-1615 +
 _cylspl_potential_kernel.cu).  Follows the same mathematical pipeline
 (the Agama CylSpline behaviour spec, documented in the reference kernel
@@ -272,9 +272,8 @@ class CylSplinePotential(Potential):
             m01 = jnp.stack([c10[0], c10[2], c11[0], c11[2]])
             m11 = jnp.stack([c10[1], c10[3], c11[1], c11[3]])
             row = (bu[0] * m00 + bu[1] * m10 + bu[2] * m01 + bu[3] * m11)
-            # precision: a (4,)x(4,) dot normally fuses on the VPU, but
-            # nothing stops XLA batching vmapped calls onto the MXU,
-            # whose fp32 default is single-pass bf16 operands
+            # precision: XLA may batch the vmapped (4,)x(4,) dots into
+            # one matrix product, which on the GPU may run in TF32
             return jnp.dot(row, bv,
                            precision=jax.lax.Precision.HIGHEST)
 

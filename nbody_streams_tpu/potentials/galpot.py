@@ -38,7 +38,7 @@ Mathematics (Kuijken & Dubinski 1995; Dehnen & Binney 1998 "GalPot"):
 
 Build cost is a one-off host-side quadrature (a few 1e5 density
 evaluations, vectorised NumPy); the result is a jittable, autodiff-able
-``MultipolePotential`` usable on TPU like any other.
+``MultipolePotential`` usable on any device like any other.
 """
 from __future__ import annotations
 

@@ -143,7 +143,7 @@ def load_evolving_potential(source, times=None, keep_lm_mult=None,
 # Reference-name compatibility wrappers (reference: agama_helper/_load.py:
 # 91-232 load_agama_potential, 234-430 load_agama_evolving_potential).
 # Same call forms; the only semantic difference is that the returned object
-# is always the native TPU evaluator — the reference's ``gpu=False`` form
+# is always the native JAX evaluator — the reference's ``gpu=False`` form
 # returns an Agama C++ potential, which this framework does not use.
 # --------------------------------------------------------------------------
 

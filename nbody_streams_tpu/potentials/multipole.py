@@ -1,6 +1,6 @@
 """Multipole (spherical-harmonic BFE) potential — jittable JAX evaluator.
 
-TPU-native re-design of the reference's MultipolePotentialGPU
+Re-design of the reference's MultipolePotentialGPU
 (reference: agama_helper/_potential.py:633-989 preprocessing +
 _multipole_potential_kernel.cu).  Same mathematical surface — Agama
 Multipole coefficient tables in, Phi/force/density out — different
@@ -10,7 +10,7 @@ engineering:
   host-side from the tabulated Phi_lm and dPhi_lm/dr, with node second
   derivatives from the same tridiagonal 'natural quintic' system Agama
   uses (continuous 4th derivative; _quintic_d2).  Evaluation is a
-  gather + Horner chain, which the VPU vectorises perfectly, and the
+  gather + Horner chain, which vectorises perfectly, and the
   force is pinned exactly to the tabulated dPhi/dr at the nodes.
 * Monopole scaling: the full Agama invPhi0 treatment — interpolate
   P = log(invPhi0 - 1/Phi_00) with invPhi0 from the Lambert-W inner
@@ -308,7 +308,7 @@ class MultipolePotential(Potential):
     Parameters
     ----------
     coefs : MultipoleCoefs | path | coef string
-    dtype : jnp dtype for the stored tables (float64 recommended off-TPU).
+    dtype : jnp dtype for the stored tables (float64 for validation).
     """
 
     def __init__(self, coefs, dtype=None, monopole_scaling: bool = True):

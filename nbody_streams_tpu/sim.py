@@ -1,23 +1,23 @@
 """Unified multi-species simulation entry point.
 
 Reference-equivalent surface of ``run_simulation`` (reference: sim.py:34),
-re-targeted at the TPU backends: one driver handles every architecture
+re-targeted at the JAX backends: one driver handles every architecture
 (see run.py), so this layer only does species validation/assembly, DF
 wiring, and kwarg routing.
 
 Method mapping (reference hardcodes a solver per backend, sim.py:236-242):
 
 * ``method='direct'`` — O(N^2) direct summation; Pallas kernel on a single
-  TPU chip, blocked jnp elsewhere.  Kernel default 'spline'.
+  GPU, blocked jnp elsewhere.  Kernel default 'spline'.
 * ``method='tree'``   — the reference's tree tier is replaced by
   *mesh-sharded direct summation* (particles sharded over the device mesh,
-  source blocks ring-permuted over ICI).  Same accuracy class or better
+  source blocks ring-permuted between devices).  Same accuracy class or better
   (it is exact), comparable throughput scaling; accepts ``devices=``.
 * ``method='scf'``    — Hernquist-Ostriker self-consistent-field
-  expansion (ops/scf.py): O(N) per step, the TPU-shaped answer to the
-  reference's ">2M use tree/FMM" crossover guidance (reference:
-  README.md:799-807).  Accuracy dials ``scf_nmax``/``scf_lmax`` play the
-  role of the tree's ``theta``; for collisionless systems the truncation
+  expansion (ops/scf.py): O(N) per step, the answer to the reference's
+  ">2M use tree/FMM" crossover guidance (reference: README.md:799-807).
+  Accuracy dials ``scf_nmax``/``scf_lmax`` play the role of the tree's
+  ``theta``; for collisionless systems the truncation
   error sits below the particle shot noise at modest orders.
 """
 from __future__ import annotations
@@ -39,7 +39,6 @@ __all__ = ["run_simulation"]
 _DIRECT_KW = {
     "precision", "kernel", "external_update_interval", "impl", "devices",
     "block_size", "nan_check", "step_timeout_s", "profile_dir",
-    "target_drift",
 }
 _DF_KW = {
     "df_M_sat", "df_coulomb_mode", "df_fixed_ln_lambda", "df_core_gamma",
@@ -80,8 +79,8 @@ def run_simulation(
     See the reference docstring surface (reference: sim.py:34-250) for the
     full parameter semantics; differences here:
 
-    * ``architecture``: 'cpu' | 'tpu' ('gpu' accepted as an alias for
-      'tpu' for drop-in compatibility) | 'auto'.
+    * ``architecture``: 'auto' | 'cpu' | 'gpu'.  'gpu' never falls back:
+      without a GPU it raises.
     * ``method='tree'`` routes to the sharded direct backend (see module
       docstring); ``theta``/``nleaf``/``ncrit``/``level_split`` are
       accepted and ignored with a warning (no tree approximation exists —
@@ -94,10 +93,10 @@ def run_simulation(
         raise ValueError(
             f"phase_space must be (N, 6), got {phase_space.shape}"
         )
-    if architecture not in ("cpu", "gpu", "tpu", "auto"):
+    if architecture not in ("cpu", "gpu", "auto"):
         raise ValueError(
-            "architecture must be 'cpu', 'tpu', 'gpu' (alias), or "
-            f"'auto', got {architecture!r}"
+            "architecture must be 'auto', 'cpu' or 'gpu', got "
+            f"{architecture!r}"
         )
     if method not in ("direct", "tree", "scf"):
         raise ValueError(
@@ -120,7 +119,7 @@ def run_simulation(
         if legacy in kw:
             kw.pop(legacy)
             if verbose:
-                print(f"note: {legacy!r} has no effect on the TPU backends "
+                print(f"note: {legacy!r} has no effect here "
                       "(sharded direct summation is exact)")
     if kw:
         raise TypeError(f"Unknown keyword arguments: {sorted(kw)}")
@@ -155,19 +154,9 @@ def run_simulation(
 
         precision = direct_kwargs.get("precision", "float32_kahan")
         scf_prec = "float64" if precision == "float64" else "float32"
-        for bad in ("impl", "block_size", "kernel", "devices",
-                    "target_drift"):
+        for bad in ("impl", "block_size", "kernel", "devices"):
             if bad in direct_kwargs:
                 raise TypeError(f"{bad!r} has no effect with method='scf'")
-        if precision == "float32_fast":
-            import warnings
-
-            from .species import PerformanceWarning
-
-            warnings.warn(
-                "precision='float32_fast' only accelerates the direct "
-                "pairwise kernels; with method='scf' it runs as plain "
-                "'float32'", PerformanceWarning, stacklevel=2)
         xv0 = phase_space
         opts = {k.removeprefix("scf_"): v for k, v in scf_kwargs.items()}
         groups_spec = opts.pop("groups", None)

@@ -125,8 +125,7 @@ def _emit_performance_warnings(n_total: int, architecture: str,
                                method: str) -> None:
     """Warn on particle counts beyond recommended thresholds.
 
-    Thresholds follow the reference (species.py:177-210), with the TPU
-    direct path inheriting the GPU-direct threshold: the mesh-sharded
+    Thresholds follow the reference (species.py:177-210): the mesh-sharded
     direct path scales to ~2M particles before a tree/FMM tier would win.
     """
     if architecture in ("auto", None):
@@ -135,8 +134,8 @@ def _emit_performance_warnings(n_total: int, architecture: str,
         # 'auto' would silently skip every per-backend threshold
         import jax
 
-        architecture = ("cpu" if jax.default_backend() == "cpu"
-                        else "tpu")
+        architecture = ("gpu" if jax.default_backend() == "gpu"
+                        else "cpu")
     if n_total > 2_000_000 and method not in ("tree", "scf"):
         warnings.warn(
             f"{n_total:,} particles: direct summation at this scale will be "
@@ -147,14 +146,14 @@ def _emit_performance_warnings(n_total: int, architecture: str,
     elif architecture == "cpu" and method == "direct" and n_total > 20_000:
         warnings.warn(
             f"{n_total:,} particles with CPU direct summation is O(N^2) and "
-            "will be very slow. Consider architecture='tpu'.",
+            "will be very slow. Consider architecture='gpu'.",
             PerformanceWarning,
             stacklevel=4,
         )
-    elif architecture in ("tpu", "gpu") and method == "direct" \
+    elif architecture == "gpu" and method == "direct" \
             and n_total > 500_000:
         warnings.warn(
-            f"{n_total:,} particles with single-chip direct summation may be "
+            f"{n_total:,} particles with single-device direct summation may be "
             "slow at this scale. Consider sharding over more devices "
             "(devices= kwarg).",
             PerformanceWarning,

@@ -2,11 +2,10 @@
 
 The reference ships a warp-centric Barnes-Hut CUDA treecode exposed as
 ``TreeGPU`` / ``tree_gravity_gpu`` / ``run_nbody_gpu_tree`` (reference:
-tree_gpu/_force.py:167,224, tree_gpu/run_gpu_tree.py:142).  On TPU the
+tree_gpu/_force.py:167,224, tree_gpu/run_gpu_tree.py:142).  Here the
 tree tier is replaced by *exact* mesh-sharded direct summation (see
-``parallel/sharded.py`` and SURVEY.md §7): a pointer-chasing tree walk
-maps poorly onto the systolic/vector hardware, while the ring-sharded
-O(N²/D) direct sum covers the same particle range with zero force error.
+``parallel/sharded.py`` and SURVEY.md §7): the ring-sharded O(N²/D)
+direct sum covers the same particle range with zero force error.
 
 These shims keep reference call sites working unchanged: the tree
 approximation knobs (``theta``, ``nleaf``, ``ncrit``, ``level_split``)
@@ -33,7 +32,7 @@ def _note_exact(theta):
     if not _warned:
         _warned = True
         warnings.warn(
-            "TPU tree tier is exact sharded direct summation; theta/"
+            "the tree tier is exact sharded direct summation; theta/"
             f"nleaf/ncrit/level_split are ignored (theta={theta} "
             "requested, force error is 0 instead of the reference "
             "tree's 1-5%)", stacklevel=3)

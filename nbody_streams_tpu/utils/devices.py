@@ -1,8 +1,8 @@
 """Device introspection and health checks.
 
 Reference-equivalent of ``get_gpu_info`` (reference: fields.py:1149) and
-``cuda_alive`` (reference: tree_gpu/_force.py:57-83), for TPU/CPU
-backends.
+``cuda_alive`` (reference: tree_gpu/_force.py:57-83), for any JAX
+backend.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ Spline *construction* happens host-side in SciPy (one-off, at potential
 build time); *evaluation* is pure jnp (searchsorted + Horner) so it traces
 into the scanned KDK step.  Replaces the reference's direct SciPy spline
 calls inside the force loop (reference: _potential.py:1880-1938), which
-would be a host round-trip per step on TPU.
+would be a host round-trip per step on the device.
 """
 from __future__ import annotations
 

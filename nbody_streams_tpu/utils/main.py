@@ -2,8 +2,8 @@
 
 Reference-equivalent surface (reference: utils/main.py:107-2047) built on
 NumPy for the host-side statistics and on the framework's own potential
-solvers for the energy-based pieces (unbinding runs the Pallas direct
-kernel on TPU; the reference shells out to falcON / CUDA tree / Agama).
+solvers for the energy-based pieces (unbinding runs the exact direct
+sum; the reference shells out to falcON / CUDA tree / Agama).
 """
 from __future__ import annotations
 
@@ -980,11 +980,11 @@ def _self_potential(pos, mass, solver: str = "direct", G: float = G_DEFAULT,
     """Per-particle self-potential via a pluggable solver.
 
     'direct' (alias 'direct_gpu', 'tree', 'tree_gpu'): exact O(N^2)
-    summation through the framework's kernels (Pallas on TPU);
+    summation through the framework's jnp direct sum;
     'bfe': spherical shell approximation (O(N log N)).
     """
     key = solver.lower()
-    if key in ("direct", "direct_gpu", "direct_tpu", "tree", "tree_gpu"):
+    if key in ("direct", "direct_gpu", "tree", "tree_gpu"):
         from ..ops import compute_potential_direct
 
         return np.asarray(compute_potential_direct(
@@ -1090,7 +1090,7 @@ def _unbinding_reference_form(
     ``center_on`` particles; velocity = aperture mean), fixed centre,
     iterate ``E = phi + |v_rel|^2/2 < 0`` until the changed fraction
     drops below ``tol_frac_change``.  Solvers: 'tree'/'tree_gpu'/
-    'direct'/'direct_gpu' all run the exact direct sum (Pallas on TPU —
+    'direct'/'direct_gpu' all run the exact direct sum (jnp path —
     force error 0 instead of the tree's 1-5%; ``theta`` accepted and
     ignored); 'bfe' fits a native Multipole (``lmax``, default 8) on the
     bound subset each iteration.  Returns ``((bound_dark[, bound_star]
@@ -1100,8 +1100,7 @@ def _unbinding_reference_form(
     from ..ops import compute_potential_direct
 
     method = potential_compute_method.lower()
-    if method not in ("tree", "tree_gpu", "direct", "direct_gpu",
-                      "direct_tpu", "bfe"):
+    if method not in ("tree", "tree_gpu", "direct", "direct_gpu", "bfe"):
         raise ValueError(
             f"unknown potential_compute_method {potential_compute_method!r}")
     lmax = int(kwargs.pop("lmax", 8))

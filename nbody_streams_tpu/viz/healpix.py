@@ -1,8 +1,8 @@
 """Native HEALPix ring-scheme pixelisation (no healpy dependency).
 
 The reference's ``plot_mollweide`` requires healpy for its HEALPix sky
-maps (reference: viz/plots.py:433-520).  healpy does not exist on TPU
-hosts; this module implements the two primitives the renderer needs —
+maps (reference: viz/plots.py:433-520).  healpy is not a dependency
+here; this module implements the two primitives the renderer needs —
 ``ang2pix_ring`` and ``pix2ang_ring`` — as vectorised NumPy, following
 the standard HEALPix equations (Gorski et al. 2005, ApJ 622, 759).
 

@@ -1,6 +1,6 @@
 """SPH surface-density rendering — on-device, scatter-add formulation.
 
-TPU-native redesign of the reference's renderer (reference:
+Redesign of the reference's renderer (reference:
 viz/sph_kernels.py:118-775 — Numba-CUDA atomic scatter / Numba-prange
 gather).  Here each particle deposits a 2-D cubic-spline kernel footprint
 onto a fixed (2K+1)^2 pixel stencil via XLA scatter-adds: deterministic,
@@ -40,7 +40,7 @@ def get_smoothing_lengths(pos, n_neighbors: int = 32,
     counts the particle itself (h = distance to the (k-1)-th *other*
     particle) and maps to ``n_neighbors = k_neighbors - 1``;
     ``safety_factor`` / ``gpu_vram_threshold_gb`` / ``verbose`` are
-    CUDA VRAM-budget knobs with no TPU analogue — accepted and ignored.
+    CUDA VRAM-budget knobs with no analogue here — accepted and ignored.
     """
     if k_neighbors is not None:
         n_neighbors = int(k_neighbors) - 1
@@ -155,7 +155,7 @@ def render_surface_density(pos, mass, extent=None, npix: int = 256,
     with rows along **x** (the reference's ``grid[i, j]`` layout,
     sph_kernels.py:378) over ``[-gridsize/2, gridsize/2]`` bounds.
     ``chunk_size``/``sort_by_morton``/``verbose`` are CUDA tiling knobs
-    with no TPU analogue — accepted and ignored.  ``k_neighbors``
+    with no analogue here — accepted and ignored.  ``k_neighbors``
     counts the particle itself (maps to ``n_neighbors - 1``).
     """
     unknown = set(compat) - _REF_RENDER_KWARGS

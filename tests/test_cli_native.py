@@ -133,14 +133,13 @@ def test_sph_smoothing_lengths_native_wiring():
 def test_default_impl_respects_default_device(monkeypatch):
     """architecture='cpu' pins jax.default_device; impl='auto' must not
     pick the Pallas kernel there even when the process default backend
-    is a TPU (r2: live-host CLI crash 'Only interpret mode is supported
-    on CPU backend')."""
+    is a GPU (the compiled kernel cannot run on the CPU backend)."""
     import jax
 
     from nbody_streams_tpu.ops import dispatch
 
-    monkeypatch.setattr(dispatch.jax, "default_backend", lambda: "tpu")
-    # no override: the fake TPU backend selects pallas
+    monkeypatch.setattr(dispatch.jax, "default_backend", lambda: "gpu")
+    # no override: the fake GPU backend selects pallas
     assert dispatch._default_impl(None) == "pallas"
     # pinned to a CPU device: must fall back to jnp
     with jax.default_device(jax.devices("cpu")[0]):

@@ -112,7 +112,7 @@ def test_block_size_invariance(rng):
         pos, mass, soft, G=1.0, precision="float64", block_size=16))
     a_big = np.asarray(compute_forces_direct(
         pos, mass, soft, G=1.0, precision="float64", block_size=128))
-    # atol floor covers TPU f64 emulation when run with NBODY_TEST_TPU=1
+    # atol floor: summation order differs between block sizes
     np.testing.assert_allclose(a_small, a_big, rtol=1e-12,
                                atol=1e-11 * np.abs(a_big).max())
 

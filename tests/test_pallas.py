@@ -1,6 +1,8 @@
-"""Pallas kernel correctness in interpreter mode (runs on CPU).
+"""Pallas (Triton route) kernel correctness in interpret mode (CPU).
 
-On real TPU hardware the same assertions run compiled (NBODY_TEST_TPU=1).
+The compiled kernel is checked on the card by tests/test_gpu_smoke.py
+and chip_smoke.py; these tests pin its arithmetic, padding, block
+choice and sorted form against the jnp oracle.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,9 +17,8 @@ from nbody_streams_tpu.ops import (
     compute_potential_direct,
 )
 
-import os
-
-INTERPRET = not os.environ.get("NBODY_TEST_TPU")
+INTERPRET = True
+KINDS = ["newtonian", "plummer", "dehnen_k1", "dehnen_k2", "spline"]
 
 
 @pytest.fixture(scope="module")
@@ -30,7 +31,7 @@ def cluster():
     return pos, mass, soft
 
 
-@pytest.mark.parametrize("kind", ["newtonian", "plummer", "spline"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_pallas_accel_matches_oracle(cluster, kind):
     pos, mass, soft = cluster
     a_p = np.asarray(pallas_accel(pos, mass, soft, 4.3e-6, kind, True,
@@ -42,7 +43,7 @@ def test_pallas_accel_matches_oracle(cluster, kind):
     assert np.isfinite(a_p).all()
 
 
-@pytest.mark.parametrize("kind", ["plummer", "spline"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_pallas_potential_matches_oracle(cluster, kind):
     pos, mass, soft = cluster
     p_p = np.asarray(pallas_potential(pos, mass, soft, 4.3e-6, kind, True,
@@ -51,6 +52,35 @@ def test_pallas_potential_matches_oracle(cluster, kind):
                                               kernel=kind,
                                               precision="float32_kahan"))
     np.testing.assert_allclose(p_p, p_j, atol=3e-6 * np.abs(p_j).max())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_unsoftened_particles_every_kernel(kind):
+    """h = 0 particles mixed with softened ones, every kernel: finite and
+    on the float64 oracle (fed the same float32 inputs).  An unsoftened
+    self pair has d = eps2, where d^-3.5 overflows float32 — dehnen_k2
+    must not turn that into 0 * inf = NaN."""
+    rng = np.random.default_rng(5)
+    n = 300
+    f32 = lambda a: a.astype(np.float32).astype(np.float64)  # noqa: E731
+    pos = f32(rng.normal(0, 1, (n, 3)))
+    mass = f32(rng.uniform(0.5, 2.0, n) * 1e5)
+    soft = f32(rng.uniform(0.05, 0.3, n))
+    soft[:20] = 0.0
+    args = [jnp.asarray(a, jnp.float32) for a in (pos, mass, soft)]
+    a = np.asarray(pallas_accel(*args, 4.3e-6, kind, True,
+                                interpret=INTERPRET), np.float64)
+    p = np.asarray(pallas_potential(*args, 4.3e-6, kind, True,
+                                    interpret=INTERPRET), np.float64)
+    a_ref = np.asarray(compute_forces_direct(pos, mass, soft, G=4.3e-6,
+                                             kernel=kind,
+                                             precision="float64"))
+    p_ref = np.asarray(compute_potential_direct(pos, mass, soft, G=4.3e-6,
+                                                kernel=kind,
+                                                precision="float64"))
+    assert np.isfinite(a).all() and np.isfinite(p).all()
+    assert np.abs(a - a_ref).max() < 3e-6 * np.abs(a_ref).max()
+    assert np.abs(p - p_ref).max() < 3e-6 * np.abs(p_ref).max()
 
 
 def test_pallas_zero_softening_no_nan(cluster):
@@ -76,32 +106,33 @@ def test_pallas_potential_with_zero_softening_particles(cluster):
     np.testing.assert_allclose(p_p, p_j, atol=3e-6 * np.abs(p_j).max())
 
 
+def _unsorted(pos, soft, gm, mode, **kw):
+    from nbody_streams_tpu.ops.pallas_direct import _pallas_direct, _soft_pre
+
+    pre = _soft_pre("spline", soft)
+    return _pallas_direct(pos, pre, pos, gm, pre, kind="spline", kahan=True,
+                          mode=mode, eps2=1e-15, mask_self=(mode == "pot"),
+                          interpret=INTERPRET, **kw)
+
+
 def test_two_pass_sorted_matches_single_pass(cluster):
-    """The slab-sorted two-pass split (Newtonian base outside each
-    tile's band + full-spline band pass) must agree with the single-pass
-    spline kernel to f32 summation-reorder level, and the static-band
-    overflow case must fall back to the single-pass kernel."""
-    from nbody_streams_tpu.ops.pallas_direct import (
-        _pallas_direct,
-        _pallas_self_sorted,
-    )
+    """The slab-sorted form (far source tiles take the Newtonian factor)
+    must agree with the unsorted spline kernel to f32 summation-reorder
+    level, including when the softening is comparable to the system size
+    and no tile is far."""
+    from nbody_streams_tpu.ops.pallas_direct import _pallas_self_sorted
 
     pos, mass, soft = cluster
     gm = mass * 4.3e-6
     for mode in ("acc", "pot"):
-        ref = _pallas_direct(pos, soft, pos, gm, soft, "spline", True,
-                             mode, 1e-15, interpret=INTERPRET,
-                             mask_self=(mode == "pot"))
+        ref = _unsorted(pos, soft, gm, mode)
         two = _pallas_self_sorted(pos, gm, soft, "spline", True, mode,
                                   1e-15, interpret=INTERPRET)
         d = np.abs(np.asarray(ref) - np.asarray(two)).max()
         assert d < 1e-6 * np.abs(np.asarray(ref)).max(), mode
 
-    # softening comparable to the system size: band cannot fit ->
-    # lax.cond fallback to the single-pass spline kernel
     hbig = jnp.full(pos.shape[0], 5.0, jnp.float32)
-    ref = _pallas_direct(pos, hbig, pos, gm, hbig, "spline", True, "acc",
-                         1e-15, interpret=INTERPRET)
+    ref = _unsorted(pos, hbig, gm, "acc")
     two = _pallas_self_sorted(pos, gm, hbig, "spline", True, "acc",
                               1e-15, interpret=INTERPRET)
     d = np.abs(np.asarray(ref) - np.asarray(two)).max()
@@ -110,9 +141,9 @@ def test_two_pass_sorted_matches_single_pass(cluster):
 
 def test_sorted_path_stale_order_is_exact():
     """A precomputed slab order — fresh, stale (perturbed positions), or
-    adversarially shuffled — must give oracle-level results: the band
-    windows are recomputed from actual positions, so any permutation is
-    exact (wider windows or the single-pass fallback, never wrong)."""
+    adversarially shuffled — must give oracle-level results: the tile
+    bounds are recomputed from actual positions, so any permutation is
+    exact (fewer far tiles, never wrong)."""
     from nbody_streams_tpu.ops.pallas_direct import _pallas_self_sorted
 
     rng = np.random.default_rng(11)
@@ -120,10 +151,9 @@ def test_sorted_path_stale_order_is_exact():
     pos = jnp.asarray(rng.normal(0, 1.0, (n, 3)), jnp.float32)
     gm = jnp.asarray(rng.uniform(0.5, 1.5, n) * 4.3e-6, jnp.float32)
     soft = jnp.full((n,), 0.05, jnp.float32)
-    # small tiles so the band window (12 rows) is a strict subset of the
-    # 47 source rows — with the default geometry this N degenerates to
-    # band == all rows and window placement is untestable
-    kw = dict(interpret=INTERPRET, tm=64, tn=128, max_sub=8)
+    # the default 8-wide source tiles: most are far from most target
+    # blocks at this N, so both kernel bodies run
+    kw = dict(interpret=INTERPRET)
     ref = np.asarray(_pallas_self_sorted(pos, gm, soft, "spline", True,
                                          "acc", 1e-15, **kw), np.float64)
 
@@ -133,10 +163,8 @@ def test_sorted_path_stale_order_is_exact():
     # adversarial: a completely random permutation
     shuf = jnp.asarray(rng.permutation(pos.shape[0]), jnp.int32)
     # drifter: order is fresh EXCEPT one particle crossed the whole
-    # system since the sort.  This breaks row-span monotonicity — the
-    # count-based window construction silently dropped the drifter's
-    # row from other tiles' bands (wrong near forces, no fallback); the
-    # first/last construction must stay exact.
+    # system since the sort.  This breaks tile-span monotonicity; the
+    # per-tile min/max bounds must stay exact.
     drift_pos = np.asarray(pos).copy()
     lo = int(np.argmin(drift_pos[:, 0]))
     hi = int(np.argmax(drift_pos[:, 0]))
@@ -158,9 +186,7 @@ def test_sorted_path_stale_order_is_exact():
             p, gm, soft, "spline", True, "acc", 1e-15, order=order,
             **kw), np.float64)
         # 5e-6: a permuted order reorders the fp32 summation across all
-        # ~6000 sources; compiled Mosaic reductions reorder differently
-        # from interpret mode (measured 3.9e-6 rel on the v5e for the
-        # shuffled case — pure round-off, both sides exact)
+        # ~6000 sources (pure round-off, both sides exact)
         assert np.abs(out - r).max() < 5e-6 * np.abs(r).max()
 
 
@@ -205,7 +231,7 @@ def test_run_chunk_presort_matches_per_call_sort():
 
     # materialised-at-init order: the carry pytree structure must be
     # IDENTICAL before and after a presorted chunk — a () -> array flip
-    # would double every compiled executable on the remote-compile path
+    # would double every compiled executable
     s1 = init_state(pos, vel, accel_fn, solver.mass, 0.0,
                     sort_fn=solver.sort_key)
     struct_before = jax.tree.structure(s1)
@@ -220,270 +246,179 @@ def test_run_chunk_presort_matches_per_call_sort():
         < 1e-6 * np.abs(np.asarray(fresh.vel)).max()
 
 
-@pytest.mark.parametrize("center", [(0.0, 0.0, 0.0), (120.0, -80.0, 40.0)])
-def test_mxu_moment_base_pass_matches(center):
-    """MXU moment rewrite of the two-pass base kernel (S @ [xs ys zs 1]
-    finalised as P[:3] - x_t P[3]) vs the VPU lane-reduction path, on a
-    geometry small enough that the Newtonian base pass covers real pairs
-    (rows >> band).  The off-centre case pins the coordinate-centring
-    guard: without it, moment cancellation costs ~2 digits at
-    |x| ~ 150 (see _pallas_self_sorted)."""
-    from nbody_streams_tpu.ops.pallas_direct import _pallas_self_sorted
-
-    rng = np.random.default_rng(11)
-    n = 6000
-    pos = jnp.asarray(rng.normal(0, 1.0, (n, 3)) + np.asarray(center),
-                      jnp.float32)
-    gm = jnp.asarray(rng.uniform(0.5, 1.5, n) * 4.3e-6, jnp.float32)
-    soft = jnp.full((n,), 0.05, jnp.float32)
-    kw = dict(interpret=INTERPRET, tm=64, tn=128, max_sub=8)
-    ref = np.asarray(_pallas_self_sorted(pos, gm, soft, "spline", True,
-                                         "acc", 1e-15, mxu=False, **kw),
-                     np.float64)
-    mx = np.asarray(_pallas_self_sorted(pos, gm, soft, "spline", True,
-                                        "acc", 1e-15, mxu=True, **kw),
-                    np.float64)
-    assert not np.array_equal(ref, mx)  # the rewrite actually ran
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(mx, ref, atol=3e-6 * scale)
-
-
-def test_mxu_potential_row_sum_matches():
-    """MXU row-sum rewrite of the potential mode (phi = S @ 1 on the
-    systolic array, in-kernel self mask applied before the contraction)
-    vs the VPU lane-reduction path, through the full sorted two-pass
-    split and against the jnp oracle."""
-    from nbody_streams_tpu.ops.pallas_direct import _pallas_self_sorted
-
-    rng = np.random.default_rng(17)
-    n = 6000
-    pos = jnp.asarray(rng.normal(0, 1.0, (n, 3)), jnp.float32)
-    mass = rng.uniform(0.5, 1.5, n).astype(np.float32)
-    gm = jnp.asarray(mass * 4.3e-6)
-    soft = jnp.full((n,), 0.05, jnp.float32)
-    kw = dict(interpret=INTERPRET, tm=64, tn=128, max_sub=8)
-    ref = np.asarray(_pallas_self_sorted(pos, gm, soft, "spline", True,
-                                         "pot", 1e-15, mxu=False, **kw),
-                     np.float64)
-    mx = np.asarray(_pallas_self_sorted(pos, gm, soft, "spline", True,
-                                        "pot", 1e-15, mxu=True, **kw),
-                    np.float64)
-    if INTERPRET:
-        # on the v5e the HIGHEST-precision MXU row sum is bitwise
-        # identical to the VPU lane reduction (same products, same
-        # order) — only interpret mode distinguishes the two paths
-        assert not np.array_equal(ref, mx)  # the rewrite actually ran
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(mx, ref, atol=3e-6 * scale)
-    # absolute anchor: the fp64 jnp oracle (self pair excluded)
-    orc = np.asarray(compute_potential_direct(
-        np.asarray(pos, np.float64), mass.astype(np.float64),
-        np.full(n, 0.05), G=4.3e-6, kernel="spline", precision="float64"),
-        np.float64)
-    np.testing.assert_allclose(mx, orc, atol=3e-6 * np.abs(orc).max())
-
-
-def test_mxu_2set_matches_vpu():
-    """pallas_accel_2set(mxu=True) vs the VPU 2-set path: the sharded
-    ring's far-branch kernel (disjoint blocks) plus the self-block case
-    with mask_self=True, which must zero the diagonal before the moment
-    contraction (s_ii * x_i would destroy fp32 P long before the
-    finalisation cancels it)."""
-    from nbody_streams_tpu.ops.pallas_direct import pallas_accel_2set
-
-    rng = np.random.default_rng(23)
-    nt, ns = 300, 500
-    pos_t = jnp.asarray(rng.normal(0, 1.0, (nt, 3)), jnp.float32)
-    pos_s = jnp.asarray(rng.normal(0, 1.0, (ns, 3)) + 8.0, jnp.float32)
-    h_t = jnp.full((nt,), 0.05, jnp.float32)
-    h_s = jnp.full((ns,), 0.05, jnp.float32)
-    gm_s = jnp.asarray(rng.uniform(0.5, 1.5, ns) * 4.3e-6, jnp.float32)
-
-    # disjoint blocks (the ring far branch): no mask needed
-    ref = np.asarray(pallas_accel_2set(pos_t, h_t, pos_s, gm_s, h_s,
-                                       "newtonian", True,
-                                       interpret=INTERPRET), np.float64)
-    mx = np.asarray(pallas_accel_2set(pos_t, h_t, pos_s, gm_s, h_s,
-                                      "newtonian", True,
-                                      interpret=INTERPRET, mxu=True),
-                    np.float64)
-    assert not np.array_equal(ref, mx)
-    np.testing.assert_allclose(mx, ref, atol=3e-6 * np.abs(ref).max())
-
-    # self block: targets == sources, diagonal must be masked in-kernel
-    gm_t = jnp.asarray(rng.uniform(0.5, 1.5, nt) * 4.3e-6, jnp.float32)
-    ref = np.asarray(pallas_accel_2set(pos_t, h_t, pos_t, gm_t, h_t,
-                                       "newtonian", True,
-                                       interpret=INTERPRET), np.float64)
-    mx = np.asarray(pallas_accel_2set(pos_t, h_t, pos_t, gm_t, h_t,
-                                      "newtonian", True, interpret=INTERPRET,
-                                      mxu=True, mask_self=True),
-                    np.float64)
-    np.testing.assert_allclose(mx, ref, atol=3e-6 * np.abs(ref).max())
-
-
-@pytest.mark.parametrize("mode", ["acc", "pot"])
-def test_mxu_fold_mass_unfold_matches(mode):
-    """fold_mass=False (the target_drift tier): the gm*f product stays
-    on the VPU per pair instead of folding into the moment matrix /
-    contraction vector — the pre-fold formulation whose 1M/1000-step
-    drift was pinned at ~1e-8 (docs/performance.md gate1m).  Must agree
-    with the folded MXU path to fp32 round-off and actually take a
-    different summation (different bits)."""
-    from nbody_streams_tpu.ops.pallas_direct import _pallas_self_sorted
-
-    rng = np.random.default_rng(29)
-    n = 6000
-    pos = jnp.asarray(rng.normal(0, 1.0, (n, 3)), jnp.float32)
-    gm = jnp.asarray(rng.uniform(0.5, 1.5, n) * 4.3e-6, jnp.float32)
-    soft = jnp.full((n,), 0.05, jnp.float32)
-    kw = dict(interpret=INTERPRET, tm=64, tn=128, max_sub=8, mxu=True)
-    folded = np.asarray(_pallas_self_sorted(pos, gm, soft, "spline", True,
-                                            mode, 1e-15, **kw), np.float64)
-    unfolded = np.asarray(_pallas_self_sorted(pos, gm, soft, "spline", True,
-                                              mode, 1e-15, fold_mass=False,
-                                              **kw), np.float64)
-    if mode == "acc":
-        # acc genuinely reorders roundings (gm folds into the coordinate
-        # moment matrix vs the per-pair factor); pot computes the same
-        # products in the same order either way, so on hardware it is
-        # bitwise identical (measured on the v5e) — only assert for acc
-        assert not np.array_equal(folded, unfolded)  # the unfold ran
-    scale = np.abs(folded).max()
-    np.testing.assert_allclose(unfolded, folded, atol=3e-6 * scale)
-
-
-def test_target_drift_selects_unfolded_moments():
-    """DirectGravity(target_drift=) — the drift-aware kernel selection
-    of VERDICT r4 #6: a sub-1e-7 request on the Pallas backend unfolds
-    the mass from the MXU moments automatically; looser targets change
-    nothing; an explicit tile override wins; non-positive rejects."""
-    from nbody_streams_tpu.ops.dispatch import DirectGravity
-
-    n = 16384
-    m = np.full(n, 1e5)
-    soft = np.full(n, 0.05)
-    mk = lambda **kw: DirectGravity(m, soft, kernel="spline",
-                                    impl="pallas", **kw)
-    tight = mk(target_drift=1e-8)
-    assert tight.tile_config == {"fold_mass": False}
-    loose = mk(target_drift=1e-5)
-    assert loose.tile_config is None
-    # explicit user choice wins over the automatic one
-    explicit = mk(target_drift=1e-8, tile_config={"fold_mass": True})
-    assert explicit.tile_config == {"fold_mass": True}
-    # geometry overrides survive the merge
-    merged = mk(target_drift=1e-8, tile_config={"tm": 256})
-    assert merged.tile_config == {"tm": 256, "fold_mass": False}
-    with pytest.raises(ValueError, match="target_drift"):
-        mk(target_drift=0.0)
-    with pytest.raises(ValueError, match="tile_config"):
-        mk(tile_config={"fold": False})
-
-
-def test_fast_tier_bounded_and_finite():
-    """float32_fast (expanded-r2-on-MXU base pass): a documented
-    REDUCED-ACCURACY tier — the r^2 = |x_t|^2 + |x_s|^2 - 2 x_t.x_s
-    expansion cancels at eps_f32 * (|x|/r)^2 per pair, giving ~1e-3
-    median force error on clustered data (vs ~1e-6 for the exact
-    tiers).  This test pins the two guarantees the tier does make:
-
-    1. bounded error on realistic clustered data (median ~1e-3,
-       nothing catastrophic), and
-    2. NO blowups from far outliers: without the in-kernel
-       r^2 >= dx_x^2 clamp, pairs involving |x| ~ 100s particles can
-       round r^2 to <= eps2 and inject ~1e21 factors (regression:
-       42/16384 particles exploded before the clamp)."""
-    from nbody_streams_tpu.ops.pallas_direct import _pallas_self_sorted
-
-    rng = np.random.default_rng(31)
-    n = 12000
-    # clustered core + heavy-tailed outliers out to ~300 length units
-    r = 1.0 / np.sqrt(rng.uniform(1e-5, 1.0, n))   # pareto-ish radii
-    u = rng.normal(size=(n, 3))
-    pos = jnp.asarray(u / np.linalg.norm(u, axis=1, keepdims=True)
-                      * np.minimum(r, 300.0)[:, None], jnp.float32)
-    gm = jnp.asarray(rng.uniform(0.5, 1.5, n) * 4.3e-6, jnp.float32)
-    soft = jnp.full((n,), 0.05, jnp.float32)
-    kw = dict(interpret=INTERPRET, tm=64, tn=128, max_sub=8)
-
-    for mode, med_tol in (("acc", 5e-3), ("pot", 1e-3)):
-        ref = np.asarray(_pallas_self_sorted(pos, gm, soft, "spline", True,
-                                             mode, 1e-15, **kw), np.float64)
-        fast = np.asarray(_pallas_self_sorted(pos, gm, soft, "spline", True,
-                                              mode, 1e-15, fast=True, **kw),
-                          np.float64)
-        assert np.isfinite(fast).all(), mode
-        if mode == "acc":
-            den = np.linalg.norm(ref, axis=1)
-            err = (np.linalg.norm(fast - ref, axis=1)
-                   / np.maximum(den, den.mean() * 1e-3))
-        else:
-            err = np.abs(fast - ref) / np.abs(ref).mean()
-        # no blowups (the dx_x^2 clamp regression) and bounded typical error
-        assert err.max() < 0.5, (mode, err.max())
-        assert np.median(err) < med_tol, (mode, np.median(err))
-
-
-def test_fast_tier_rejects_mxu_false_tile():
-    """float32_fast builds r^2 on the MXU moment path; a tile override
-    mxu=False must fail loudly at construction (previously: opaque
-    trace-time ValueError from accel, silent success from potential)."""
-    from nbody_streams_tpu.ops.dispatch import DirectGravity
-
-    n = 16384
-    m = np.full(n, 1e5)
-    soft = np.full(n, 0.05)
-    with pytest.raises(ValueError, match="mxu"):
-        DirectGravity(m, soft, kernel="spline", precision="float32_fast",
-                      impl="pallas", tile_config={"mxu": False})
-
-
-def test_tile_override_warns_when_ignored(rng):
-    """tm/tn/max_sub/mxu only shape the slab-sorted spline path; a
-    bencher supplying them with a non-sorted kernel must be told the
-    geometry was never used."""
-    from nbody_streams_tpu.ops import pallas_direct
-    from nbody_streams_tpu.species import PerformanceWarning
-
-    n = 512
-    pos = jnp.asarray(rng.normal(0, 1, (n, 3)), jnp.float32)
-    m = jnp.full((n,), 1e5, jnp.float32)
-    soft = jnp.full((n,), 0.05, jnp.float32)
-    with pytest.warns(PerformanceWarning, match="slab-sorted"):
-        pallas_direct.pallas_accel(pos, m, soft, 4.3e-6, "plummer",
-                                   True, interpret=True,
-                                   tile={"tm": 256})
-    with pytest.warns(PerformanceWarning, match="slab-sorted"):
-        pallas_direct.pallas_potential(pos, m, soft, 4.3e-6, "plummer",
-                                       True, interpret=True,
-                                       tile={"tm": 256})
-
-
 def test_mxu_contractions_pin_operand_precision():
-    """Every MXU contraction in the compute path must carry
-    ``precision=jax.lax.Precision.HIGHEST``: the v5e systolic array
-    multiplies fp32 operands as single-pass bf16 by default
-    (``preferred_element_type`` only sets the accumulator), which was
-    measured to inject 5.6e-3-class relative force errors on hardware
-    while remaining invisible to these interpret-mode tests
-    (docs/performance.md, 'MXU bf16 operand truncation').  Source-level
-    guard because no CPU test can see the truncation."""
+    """Every JAX contraction whose result feeds a force on the main
+    path must carry ``precision=jax.lax.Precision.HIGHEST``: on the GPU
+    XLA may otherwise run it in TF32 (about three decimal digits), far
+    outside the 3e-6 force tolerance and invisible to CPU tests.
+    Source-level guard because no CPU test can see the truncation."""
     import re
     from pathlib import Path
 
     pkg = Path(__file__).resolve().parent.parent / "nbody_streams_tpu"
-    for rel in ("ops/pallas_direct.py", "ops/scf.py",
-                "potentials/cylspline.py"):
+    pin = "precision=jax.lax.Precision.HIGHEST"
+    for rel in ("ops/scf.py", "potentials/cylspline.py", "integrate.py",
+                "potentials/galpot.py", "run.py", "potentials/fit.py",
+                "ops/pallas_direct.py", "ops/xla_direct.py",
+                "ops/pairwise.py"):
         src = (pkg / rel).read_text()
-        for match in re.finditer(r"dot_general\(|jnp\.dot\(", src):
+        for match in re.finditer(
+                r"dot_general\(|jnp\.dot\(|jnp\.matmul\(|jnp\.einsum\(",
+                src):
             window = src[match.start():match.start() + 400]
-            assert "precision=jax.lax.Precision.HIGHEST" in window, (
-                f"{rel}: dot_general at offset {match.start()} has no "
-                "precision=HIGHEST (bf16 operand truncation on TPU)")
-        # jnp.matmul / @ with fp32 operands hits the same MXU default
-        for match in re.finditer(r"jnp\.matmul\(", src):
-            window = src[match.start():match.start() + 400]
-            assert "precision=jax.lax.Precision.HIGHEST" in window, (
-                f"{rel}: jnp.matmul at offset {match.start()} has no "
-                "precision=HIGHEST (bf16 operand truncation on TPU)")
+            assert pin in window, (
+                f"{rel}: contraction at offset {match.start()} has no "
+                "precision=HIGHEST (TF32 on the GPU)")
+    # (the '@' products in potentials/galpot.py and potentials/fit.py
+    # are NumPy float64 on the host, set-up work outside XLA)
+
+
+def _cloud(n, seed=7):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (n, 3)).astype(np.float64),
+            rng.uniform(0.5, 2.0, n) * 1e5,
+            rng.uniform(0.02, 0.2, n))
+
+
+@pytest.mark.parametrize("n", [1, 2, 17, 129, 300])
+def test_padding_any_n_matches_oracle(n):
+    """Target padding to whole programs and source padding to whole
+    reduction groups (zero mass) are invisible for any N, including a
+    single particle (zero force, zero potential)."""
+    pos, mass, soft = _cloud(n)
+    p32 = [jnp.asarray(a, jnp.float32) for a in (pos, mass, soft)]
+    a = np.asarray(pallas_accel(*p32, 4.3e-6, "spline", True,
+                                interpret=INTERPRET))
+    p = np.asarray(pallas_potential(*p32, 4.3e-6, "spline", True,
+                                    interpret=INTERPRET))
+    a_ref = np.asarray(compute_forces_direct(pos, mass, soft, G=4.3e-6,
+                                             precision="float64"))
+    p_ref = np.asarray(compute_potential_direct(pos, mass, soft, G=4.3e-6,
+                                                precision="float64"))
+    assert a.shape == (n, 3) and p.shape == (n,)
+    np.testing.assert_allclose(a, a_ref, atol=3e-6 * max(
+        np.abs(a_ref).max(), 1e-30))
+    np.testing.assert_allclose(p, p_ref, atol=3e-6 * max(
+        np.abs(p_ref).max(), 1e-30))
+
+
+@pytest.mark.parametrize("nt,ns,want", [
+    (1, 1, (16, 8, 1)),
+    (100, 100, (128, 8, 16)),
+    (700, 700, (128, 8, 32)),
+    (65536, 65536, (128, 8, 32)),
+    (20, 5000, (32, 8, 32)),
+    (5000, 20, (128, 8, 4)),
+])
+def test_block_config(nt, ns, want):
+    """Block sizes are powers of two, shrink with small problems so the
+    padding stays bounded, and never exceed the tuned defaults."""
+    from nbody_streams_tpu.ops.pallas_direct import block_config
+
+    got = block_config(nt, ns)
+    assert got == want
+    for v in got:
+        assert v & (v - 1) == 0
+
+
+@pytest.mark.parametrize("kind", ["plummer", "spline"])
+@pytest.mark.parametrize("mode", ["acc", "pot"])
+def test_two_set_matches_oracle(kind, mode):
+    """Two-set form (the sharded ring tile, the potential fit): targets
+    and sources are different arrays of different lengths."""
+    from nbody_streams_tpu.ops.pairwise import accel_tile, potential_tile
+    from nbody_streams_tpu.ops.pallas_direct import (pallas_accel_2set,
+                                                     pallas_potential_2set)
+
+    pt, _, ht = _cloud(300, seed=1)
+    ps, ms, hs = _cloud(1000, seed=2)
+    ps = ps + 0.5
+    gm = ms * 4.3e-6
+    f = pallas_accel_2set if mode == "acc" else pallas_potential_2set
+    out = np.asarray(f(*(jnp.asarray(a, jnp.float32)
+                         for a in (pt, ht, ps, gm, hs)), kind, True,
+                       interpret=INTERPRET))
+    tile = accel_tile if mode == "acc" else potential_tile
+    ref = np.asarray(tile(kind, jnp.asarray(pt), jnp.asarray(ht),
+                          jnp.full(300, -1, jnp.int32), jnp.asarray(ps),
+                          jnp.asarray(gm), jnp.asarray(hs),
+                          jnp.arange(1000, dtype=jnp.int32)))
+    np.testing.assert_allclose(out, ref, atol=3e-6 * np.abs(ref).max())
+
+
+def test_two_set_potential_mask_self_matches_single_set(cluster):
+    """mask_self=True on identical target/source arrays is the
+    single-set potential (the ring's self-block step)."""
+    from nbody_streams_tpu.ops.pallas_direct import pallas_potential_2set
+
+    pos, mass, soft = cluster
+    gm = mass * 4.3e-6
+    two = np.asarray(pallas_potential_2set(pos, soft, pos, gm, soft,
+                                           "spline", True,
+                                           interpret=INTERPRET,
+                                           mask_self=True))
+    one = np.asarray(pallas_potential(pos, mass, soft, 4.3e-6, "spline",
+                                      True, interpret=INTERPRET))
+    np.testing.assert_allclose(two, one, rtol=1e-6)
+
+
+def test_plain_float32_within_stated_bound(cluster):
+    """kahan=False (precision='float32') stays inside its stated 3e-5
+    bound against the float64 oracle."""
+    pos, mass, soft = cluster
+    a = np.asarray(pallas_accel(pos, mass, soft, 4.3e-6, "spline", False,
+                                interpret=INTERPRET), np.float64)
+    ref = np.asarray(compute_forces_direct(
+        np.asarray(pos, np.float64), np.asarray(mass, np.float64),
+        np.asarray(soft, np.float64), G=4.3e-6, precision="float64"))
+    assert np.abs(a - ref).max() < 3e-5 * np.abs(ref).max()
+
+
+def test_sorted_bounds_make_far_tiles():
+    """On a slab-sorted Plummer sphere most (target block, source tile)
+    pairs are farther apart than max(h): the compact-support test has
+    work to skip.  Mirrors the bounds _pallas_self_sorted passes."""
+    from nbody_streams_tpu import make_plummer_sphere
+
+    n, bt, bs = 20000, 128, 8
+    xv, _ = make_plummer_sphere(n, M_total=1e9, a=1.0, seed=2)
+    x = np.sort(xv[:, 0])
+    xt = np.pad(x, (0, -n % bt), mode="edge").reshape(-1, bt)
+    xs = np.pad(x, (0, -n % bs), mode="edge").reshape(-1, bs)
+    h = 0.05
+    far = ((xs.max(1)[None, :] < xt.min(1)[:, None] - h)
+           | (xs.min(1)[None, :] > xt.max(1)[:, None] + h))
+    assert far.mean() > 0.8
+
+
+@pytest.mark.parametrize("precision,impl", [("float32_kahan", "pallas"),
+                                            ("float32", "pallas"),
+                                            ("float64", "jnp")])
+def test_direct_gravity_pallas_impl(precision, impl):
+    """DirectGravity(impl='pallas') routes to the kernel for both fp32
+    tiers and falls back to the jnp oracle for float64."""
+    from nbody_streams_tpu.ops.dispatch import DirectGravity
+
+    pos, mass, soft = _cloud(64)
+    s = DirectGravity(mass, soft, impl="pallas", precision=precision)
+    assert s.impl == impl
+    assert s.kahan == (precision == "float32_kahan")
+
+
+@pytest.mark.parametrize("bad", [{"tile_config": {"tm": 256}},
+                                 {"target_drift": 1e-8}])
+def test_removed_options_rejected(bad):
+    """The accelerator-tuning options of the earlier kernel are gone and
+    fail loudly instead of being silently ignored."""
+    from nbody_streams_tpu.ops.dispatch import DirectGravity
+
+    with pytest.raises(TypeError):
+        DirectGravity(np.ones(8), np.full(8, 0.05), **bad)
+
+
+def test_float32_fast_rejected():
+    from nbody_streams_tpu.ops.dispatch import DirectGravity
+
+    with pytest.raises(ValueError, match="precision"):
+        DirectGravity(np.ones(8), np.full(8, 0.05),
+                      precision="float32_fast")

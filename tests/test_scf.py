@@ -267,11 +267,8 @@ def test_run_simulation_scf_end_to_end(tmp_path):
         nst.run_simulation(xv, sp, 0.0, 0.001, 1e-4, method="scf",
                            kernel="plummer", output_dir=str(tmp_path),
                            save_snapshots=False)
-    # float32_fast only exists on the direct Pallas path: warn like
-    # DirectGravity does instead of silently degrading
-    from nbody_streams_tpu.species import PerformanceWarning
-
-    with pytest.warns(PerformanceWarning, match="float32_fast"):
+    # an unknown precision tier is rejected, not silently degraded
+    with pytest.raises(ValueError, match="precision"):
         nst.run_simulation(xv, sp, 0.0, 2e-4, 1e-4, method="scf",
                            precision="float32_fast", scf_nmax=2,
                            scf_lmax=0, output_dir=str(tmp_path),

@@ -1,6 +1,6 @@
 """Mesh-sharded direct summation: equivalence with the single-device path
 on a virtual 8-device CPU mesh (the reference has no multi-device tier;
-this is the TPU framework's replacement for its Barnes-Hut tree)."""
+this is the replacement for its Barnes-Hut tree)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,8 +127,8 @@ def test_driver_uneven_n_sharded_matches_direct(tmp_path):
 
 def _pallas_ring(single, use_pallas=True):
     """ShardedDirect forced onto the Pallas tile branch, interpret mode
-    (executes the flagship multi-chip Pallas code path on the virtual
-    CPU mesh — the same branch real multi-chip TPU meshes take)."""
+    (executes the multi-device kernel path on the virtual CPU mesh — the
+    same branch GPU meshes take)."""
     from nbody_streams_tpu.parallel.sharded import (
         ShardedDirect, make_particle_mesh)
 
@@ -298,33 +298,10 @@ def test_slab_sort_for_sharding_preserves_physics(rng):
     np.testing.assert_allclose(a1, a0[order], rtol=2e-5, atol=1e-8)
 
 
-def test_real_centroid_is_ghost_blind():
-    """The MXU-centring centroid must be the REAL rows' mean:
-    zero-position ghosts would pull a plain mean toward the origin by
-    pad/npad of the system offset, reintroducing the
-    moment-cancellation error the shift exists to bound (only
-    measurable at hardware scale, so the value is pinned directly)."""
-    from nbody_streams_tpu.parallel.sharded import _real_centroid
-
-    rng = np.random.default_rng(9)
-    n, npad = 9, 16              # extreme ghost fraction (7/16)
-    pos = rng.normal(0, 1, (n, 3)) + np.array([120.0, -80.0, 60.0])
-    padded = jnp.asarray(np.vstack([pos, np.zeros((npad - n, 3))]),
-                         jnp.float32)
-    c_pad = np.asarray(_real_centroid(padded, n))[0]
-    c_unpad = np.asarray(_real_centroid(
-        jnp.asarray(pos, jnp.float32), n))[0]
-    truth = pos.mean(axis=0)
-    np.testing.assert_allclose(c_pad, truth, rtol=1e-5)
-    np.testing.assert_allclose(c_unpad, truth, rtol=1e-5)
-    # the plain padded mean would be off by ~pad/npad of the offset
-    assert np.abs(np.asarray(jnp.mean(padded, axis=0)) - truth).max() > 10
-
-
 def test_pallas_ring_offcentre_uneven_ghost_padding_exact():
     """Off-centre system with genuine ghost padding (N=601 -> 7 ghosts)
-    through the interpret-mode MXU Pallas ring: the padded path must
-    match the single-device oracle on the real rows."""
+    through the interpret-mode Pallas ring: the padded path must match
+    the single-device oracle on the real rows."""
     rng = np.random.default_rng(9)
     n = 601
     pos = rng.normal(0, 1, (n, 3)) + np.array([120.0, -80.0, 60.0])
@@ -336,7 +313,6 @@ def test_pallas_ring_offcentre_uneven_ghost_padding_exact():
     single = DirectGravity(mass, soft, G=4.3e-6, impl="jnp",
                            precision="float32_kahan")
     sh = _pallas_ring(single)
-    sh.mxu = True                # force the moment branch in interpret
     p = jnp.asarray(pos, jnp.float32)
     a1 = np.asarray(single.accel(p))
     pad = sh.npad - n

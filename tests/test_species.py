@@ -68,9 +68,9 @@ def test_split_by_species():
 @pytest.mark.parametrize(
     "n,arch,method",
     [
-        (2_000_001, "tpu", "direct"),
+        (2_000_001, "gpu", "direct"),
         (20_001, "cpu", "direct"),
-        (500_001, "tpu", "direct"),
+        (2_000_001, "cpu", "direct"),
         (500_001, "gpu", "direct"),
     ],
 )
@@ -84,7 +84,7 @@ def test_no_warning_small():
 
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        _emit_performance_warnings(1000, "tpu", "direct")
+        _emit_performance_warnings(1000, "gpu", "direct")
 
 
 def test_performance_warning_fires_under_auto():
@@ -99,10 +99,10 @@ def test_performance_warning_fires_under_auto():
 
 def test_run_simulation_invalid_architecture_message():
     """The rejection message must list every accepted value — it used
-    to claim only 'cpu'/'tpu' while the guard accepts 'gpu'/'auto'."""
+    to omit accepted values."""
     from nbody_streams_tpu.sim import run_simulation
 
     xv = np.zeros((4, 6))
-    with pytest.raises(ValueError, match="'gpu'.*'auto'"):
+    with pytest.raises(ValueError, match="'auto'.*'cpu'.*'gpu'"):
         run_simulation(xv, [Species.dark(4, 1.0)], 0.0, 1.0, 0.5,
                        architecture="cuda")
